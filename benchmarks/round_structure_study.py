@@ -1,23 +1,21 @@
 #!/usr/bin/env python
 """Structural breakdown of the randomized rounding sweep at rank 1024.
 
-The bf16 study (benchmarks/bf16_round_study.py) showed the precision
-knobs saturate at ~19.7 TFLOP/s effective even with every GEMM at one
-bf16 pass — so the remaining wall is NOT matmul passes.  This driver
-separates the suspects:
+The bf16 study (benchmarks/bf16_round_study.py) measures what the
+matmul-precision knobs buy; this driver separates the structural
+suspects for the rest of the sweep's wall:
 
   cholqr1       the shipping panel orthonormalization (Gram + chol +
                 trsm with rl*n RHS) — the bf16-study baseline
   cholqr1_invl  trsm against the (l, l) identity once, then the panel
-                apply as a GEMM (MXU) — tests whether the wide-RHS trsm
+                apply as a GEMM — tests whether the wide-RHS trsm
                 is the bottleneck
   none          no orthonormalization at all (INVALID result, timing
                 floor): what the sweep costs when it is pure GEMM
 
-All variants run precision='default' (one bf16 pass on the bulk GEMMs),
-gram_precision='high', the regime the bf16 study identified as the
-quality/speed frontier.  Timing: chained-loop, RTT-cancelled
-(CLAUDE.md).  Quality (skipped for 'none'): same on-device difference-TT
+All variants run precision='default' on the bulk GEMMs and
+gram_precision='high' (the speed preset 'bf16_frontier').  Timing:
+chained-loop, median of repeats to completion (bench._time_looped).  Quality (skipped for 'none'): same on-device difference-TT
 readout as the bf16 study, on the decaying-spectrum instance where
 mantissa effects are visible.
 
@@ -30,7 +28,6 @@ from __future__ import annotations
 import json
 import os
 import sys
-import time
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _REPO)
@@ -52,14 +49,12 @@ def main() -> None:
     oversample = 8
     iters = _parse_int("--iters", 96 if rank >= 1024 else 192)
 
-    _bench._setup_cache()
-    if not _bench._probe_backend():
-        print(json.dumps({"error": "backend init timed out"}))
-        sys.exit(1)
+    from xerus_tpu.config import enable_compile_cache
+    enable_compile_cache()
 
     import jax
     import jax.numpy as jnp
-    from xerus_tpu.ops.tt_kernels import (_round_randomized, make_timed_loop,
+    from xerus_tpu.ops.tt_kernels import (_round_randomized,
                                           randomized_round_flops)
 
     rng = np.random.Generator(np.random.PCG64(0xBAADF00D))
@@ -88,22 +83,8 @@ def main() -> None:
                                      gram_precision="high")
 
         once = jax.jit(kernel)
-        many = make_timed_loop(kernel, iters)
-        rtt = _bench._dispatch_rtt()
-
-        def timed(inst):
-            def run():
-                with jax.enable_x64(False), \
-                        jax.default_matmul_precision("highest"):
-                    return float(many(inst))
-            v = run()
-            assert np.isfinite(v), "kernel produced non-finite values"
-            best = float("inf")
-            for _ in range(3):
-                t0 = time.perf_counter()
-                run()
-                best = min(best, time.perf_counter() - t0)
-            return max(best - rtt, 1e-9) / iters
+        def timed(inst, kernel=kernel):
+            return _bench._time_looped(kernel, inst, iters)
 
         for inst_name, inst in (("random_flat", dev), ("decaying", dec)):
             t = timed(inst)

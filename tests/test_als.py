@@ -130,7 +130,7 @@ def test_als_quickstart_qtt_poisson():
 @pytest.mark.slow
 def test_north_star_d32_poisson_rank30():
     """The BASELINE.json target problem: d=32 QTT Poisson at rank 30,
-    relative residual at 1e-10 level (f64 CPU validation of the TPU
+    relative residual at 1e-10 level (f64 CPU validation of the device
     kernel path — ALS fast path runs the same _als_half_sweep).
     Takes minutes on CPU; run with `pytest -m slow`."""
     d = 32
@@ -185,7 +185,7 @@ def test_asd_spd_fast_path_converges():
 @pytest.mark.slow
 def test_als_cg_matrix_free_local_solver():
     """local_solver='cg' (matrix-free local solves, never materializes
-    the (r n r)^2 local operator — TPU-native extension) converges like
+    the (r n r)^2 local operator — an extension) converges like
     the lapack path on the SPD Poisson system."""
     dims = [2] * 8
     A = laplace_operator(dims)

@@ -191,7 +191,7 @@ def test_adf_adaptive_device_run_rank_one():
 
 def test_adf_rank_bump_survives_f32_epsilon():
     """The ADF rank bump adds a small random rank-1 term then rounds to
-    max_ranks (adf.cpp:589-601).  Under the f32 TPU mode, config.epsilon
+    max_ranks (adf.cpp:589-601).  Under the f32 value dtype, config.epsilon
     ~ 9.5e-7 sits exactly at the reference's 1e-6 bump scale: rounding
     nondeterministically truncated the bump away and froze bonds at their
     deficient ranks.  The bump scale is now dtype-aware (>= 16x the round
@@ -334,3 +334,27 @@ def test_rankone_normalize_keeps_measurements_consistent():
         assert np.isclose(np.linalg.norm(w1), 1.0, atol=1e-13)
         assert np.isclose(np.linalg.norm(w2), 1.0, atol=1e-13)
         assert np.isclose(w1 @ X @ w2, r1.get_measuredValue(i), atol=1e-12)
+
+
+@pytest.mark.parametrize("dims,ranks,M", [
+    ([4] * 6, 5, 100),                   # uniform dims
+    ([2, 5, 3, 4], [2, 4, 3], 17),       # non-uniform dims and ranks
+    ([2] * 16, 160, 300),                # rank above 128
+    ([3] * 5, 4, 257),                   # M not a multiple of 256
+])
+def test_evaluate_tt_at_points_matches_dense(dims, ranks, M):
+    """Batched gather+contraction evaluation against indexing the dense
+    tensor contracted in numpy f64."""
+    from xerus_tpu.algorithms.measurements import _evaluate_tt_at_points
+    tt = TTTensor.random(dims, ranks)
+    cores = [np.asarray(c.to_ndarray(), np.float64) for c in tt.components]
+    dense = cores[0]
+    for c in cores[1:]:
+        dense = np.tensordot(dense, c, axes=([dense.ndim - 1], [0]))
+    dense = dense.reshape(dims)
+    rng = np.random.default_rng(M)
+    P = np.stack([rng.integers(0, n, size=M) for n in dims], axis=1)
+    got = _evaluate_tt_at_points(tt, P)
+    ref = dense[tuple(P.T)]
+    assert got.shape == (M,)
+    assert np.allclose(got, ref, rtol=1e-12, atol=1e-12 * np.abs(ref).max())

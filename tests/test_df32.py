@@ -131,31 +131,33 @@ def test_refined_spd_solve_hits_1e10():
     assert resid < resid32 / 100
 
 
-def test_pallas_df_matvec():
-    """Single-HBM-pass Pallas df matvec (interpret mode on CPU)."""
-    from xerus_tpu.ops.pallas_df import pallas_df_matvec
-    A = _rand((200, 300), 20)
-    x = _rand((300,), 21)
+@pytest.mark.parametrize("shape", [(128, 256), (130, 190)])
+def test_df_matvec_matches_f64(shape):
+    """df matvec against the numpy f64 product, aligned and unaligned."""
+    A = _rand(shape, 20)
+    x = _rand((shape[1],), 21)
     Ah, Al = df32.df_from_f64(A)
     xh, xl = df32.df_from_f64(x)
-    oh, ol = pallas_df_matvec(Ah, Al, xh, xl, block_m=64, block_k=128)
+    oh, ol = jax.jit(df32.df_matvec)(Ah, Al, xh, xl)
     exact = A @ x
-    rel = np.linalg.norm(df32.df_to_f64(np.asarray(oh), np.asarray(ol)) - exact) \
-        / np.linalg.norm(exact)
+    rel = np.linalg.norm(df32.df_to_f64(oh, ol) - exact) / np.linalg.norm(exact)
     assert rel < 1e-12
 
 
-def test_pallas_df_matvec_unaligned_sizes():
-    from xerus_tpu.ops.pallas_df import pallas_df_matvec
-    A = _rand((130, 190), 22)
-    x = _rand((190,), 23)
+def test_refined_spd_solve_large_system():
+    """df_solve_spd_refined on a 1100x1100 system (above 2^20 entries, the
+    size of the ALS local systems at rank 30) against numpy f64."""
+    n = 1100
+    g = _rand((n, n), 12) / np.sqrt(n)
+    A = g @ g.T + np.eye(n)
+    b = _rand((n,), 13)
     Ah, Al = df32.df_from_f64(A)
-    xh, xl = df32.df_from_f64(x)
-    oh, ol = pallas_df_matvec(Ah, Al, xh, xl, block_m=64, block_k=64)
-    exact = A @ x
-    rel = np.linalg.norm(df32.df_to_f64(np.asarray(oh), np.asarray(ol)) - exact) \
-        / np.linalg.norm(exact)
-    assert rel < 1e-12
+    bh, bl = df32.df_from_f64(b)
+    xh, xl = jax.jit(df32.df_solve_spd_refined)(Ah, Al, bh, bl)
+    x = df32.df_to_f64(xh, xl)
+    assert np.linalg.norm(A @ x - b) / np.linalg.norm(b) < 1e-10
+    assert (np.linalg.norm(x - np.linalg.solve(A, b))
+            / np.linalg.norm(x)) < 1e-9
 
 
 def test_ozaki_matmul_df_accuracy():

@@ -101,8 +101,7 @@ def test_dmrg_scan_lanczos_and_lobpcg_match_exact():
     """Matrix-free local solvers (ops/dmrg_kernels.py _lanczos_smallest /
     _lobpcg_smallest) must reach the same ground state as the dense-eigh
     scan kernel; at full rank (d=8, rank 16) all three match exact
-    diagonalization.  On TPU the Lanczos variant runs the d=32 rank-16
-    half-sweep in 8.6 ms vs the eigh kernel's 632-783 ms."""
+    diagonalization."""
     from xerus_tpu.ops.dmrg_kernels import dmrg_groundstate_scan
     d = 8
     H = heisenberg_mpo(d)
@@ -143,7 +142,7 @@ def test_dmrg_half_sweep_batched_matches_serial():
     import jax.numpy as jnp
     from xerus_tpu.ops.dmrg_kernels import (dmrg_half_sweep_batched,
                                             make_dmrg_sweep_lobpcg)
-    from xerus_tpu.ops.pallas_tt_eval import pad_cores
+    from xerus_tpu.ops.tt_kernels import pad_cores
 
     d, rank = 6, 8
     H = heisenberg_mpo(d)
@@ -280,7 +279,7 @@ def test_dmrg_device_run_matches_host_loop():
     from xerus_tpu.ops.dmrg_kernels import (
         make_dmrg_run, make_dmrg_sweep_lobpcg, _pad_operator_stack,
         _rev_x_stack, _rev_A_stack)
-    from xerus_tpu.ops.pallas_tt_eval import pad_cores
+    from xerus_tpu.ops.tt_kernels import pad_cores
 
     d = 10
     H = heisenberg_mpo(d)

@@ -224,7 +224,7 @@ def test_revealed_rank_rejects_nan_spectrum():
 
 def test_gesdd_failure_fixtures():
     """End-to-end regression on REAL matrices that made XLA's CPU gesdd
-    return nan silently (captured from TPU-session DMRG residual readouts
+    return nan silently (captured from accelerator-session DMRG residual readouts
     via XERUS_TPU_CAPTURE_GESDD_DIR; tests/data/gesdd_failure_*.npy).
     Each fixture must (a) actually reproduce the gesdd nan, (b) come out
     finite and exactly reconstructed through the object-layer CQ — the

@@ -331,8 +331,8 @@ def test_streaming_round():
 
 
 def test_randomized_round_cholqr1_matches_householder_quality():
-    """Single-pass shifted-CholeskyQR panels (the v5e fast path: 2.03 ms
-    vs 2.81 ms Householder for d=32 256->128) must match Householder's
+    """Single-pass shifted-CholeskyQR panels (the bench's randomized
+    sweep) must match Householder's
     truncation quality; representable ranks reconstruct to the u*kappa^2
     contract."""
     from xerus_tpu.ops.tt_kernels import tt_round_randomized_uniform
@@ -367,7 +367,7 @@ def test_randomized_round_precision_knobs():
     compat with every existing call site), and lowered precisions must
     stay quasi-optimal.  On CPU all f32 matmul precisions execute as
     true f32, so 'default' is a pure API/trace test here; the measured
-    precision trade-offs live in doc/performance.md (TPU campaign)."""
+    precision trade-offs are measured by benchmarks/bf16_round_study.py."""
     import jax
     from xerus_tpu.ops.tt_kernels import _round_randomized
 
@@ -402,7 +402,7 @@ def test_randomized_round_precision_knobs():
 
 def test_randomized_round_cholqr1_invl_parity():
     """cholqr1_invl (trsm against the (l, l) identity, panel apply as a
-    GEMM — the MXU-friendly form, round-4 structure study) computes the
+    GEMM — benchmarks/round_structure_study.py) computes the
     same algebra as cholqr1: same output ranks, same truncation, same
     values up to f32 rounding of the L^{-T} formation order."""
     import jax
@@ -726,3 +726,54 @@ def test_randomized_round_unrolled_cholqr1_matches_householder():
     # same sketch, same projections -> identical truncation error
     assert abs(errs["cholqr1"] - errs["householder"]) < 1e-6, errs
     assert errs["householder"] < 0.2, errs
+
+
+def test_pad_cores_roundtrip():
+    from xerus_tpu.ops.tt_kernels import pad_cores
+    tt = TTTensor.random([3, 4, 3], 2)
+    stacked, r = pad_cores([np.asarray(c.to_ndarray()) for c in tt.components])
+    assert stacked.shape == (3, r, 4, r)
+    # first core occupies the top-left corner
+    c0 = np.asarray(tt.components[0].to_ndarray())
+    assert np.allclose(np.asarray(stacked)[0, :1, :3, :2], c0)
+
+
+@pytest.mark.parametrize("kind", ["generic", "cliff", "overranked"])
+def test_gemm_exact_step_matches_svd_truncation(kind):
+    """The certified GEMM-only truncation step (XLA branch) at the bench's
+    interior-bond shape cur=(256, 512), keep_cap=128, against the optimal
+    rank-keep truncation from numpy's f64 SVD (Eckart-Young).  f32
+    arithmetic: the truncation errors must agree at f32 roundoff, and on
+    spectra with a clear subspace (cliff / overranked) so must the
+    reconstructions."""
+    import jax
+    from xerus_tpu.ops import tt_kernels as tk
+    B, M, cap, keep = 256, 512, 128, 96
+    rng = np.random.default_rng(7)
+    if kind == "generic":
+        A = rng.standard_normal((B, M)) * rng.uniform(0.1, 1.0, size=(B, 1))
+    elif kind == "cliff":
+        U, _ = np.linalg.qr(rng.standard_normal((B, B)))
+        V, _ = np.linalg.qr(rng.standard_normal((M, B)))
+        s = np.concatenate([np.linspace(10.0, 1.0, keep),
+                            np.full(B - keep, 1e-6)])
+        A = (U * s) @ V.T
+    else:
+        # true rank far below keep: polar failure + Householder-LQ finish
+        A = rng.standard_normal((B, 7)) @ rng.standard_normal((7, M))
+    cur = jnp.asarray(A, jnp.float32)
+    with jax.enable_x64(False):
+        us, vt = tk._trunc_step_gemm_exact(cur, keep, cap, jnp.float32, 1e-30)
+    assert us.shape == (B, cap) and vt.shape == (cap, M)
+    A64 = np.asarray(cur, np.float64)
+    u, s, wt = np.linalg.svd(A64, full_matrices=False)
+    best = (u[:, :keep] * s[:keep]) @ wt[:keep]
+    rec = np.asarray(us, np.float64) @ np.asarray(vt, np.float64)
+    nrm2 = np.sum(s ** 2)
+    err = np.linalg.norm(A64 - rec) ** 2 / nrm2
+    err_opt = np.sum(s[keep:] ** 2) / nrm2
+    assert abs(err - err_opt) < 5e-6, (kind, err, err_opt)
+    # entries beyond keep are exactly zero
+    assert not np.any(np.asarray(vt)[keep:])
+    if kind != "generic":
+        assert np.linalg.norm(rec - best) / np.linalg.norm(A64) < 5e-6, kind

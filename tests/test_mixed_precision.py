@@ -1,5 +1,5 @@
 """Mixed-precision (double-word f32) ALS tests: f64-quality residuals with
-no float64 compute (the on-TPU precision path)."""
+no float64 compute."""
 
 import numpy as np
 import pytest

@@ -221,7 +221,7 @@ def test_sharded_batched_sweeps_match_unsharded(mesh):
         sharded_als_half_sweep_batched, sharded_dmrg_half_sweep_batched)
     from xerus_tpu.ops.tt_kernels import als_half_sweep_batched
     from xerus_tpu.ops.dmrg_kernels import dmrg_half_sweep_batched
-    from xerus_tpu.ops.pallas_tt_eval import pad_cores
+    from xerus_tpu.ops.tt_kernels import pad_cores
     from xerus_tpu.examples import laplace_operator, heisenberg_mpo
 
     d, B = 6, 4

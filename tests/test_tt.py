@@ -453,12 +453,12 @@ def test_round_fast_per_edge_rank_vector():
 
 
 def test_round_fast_bf16_frontier_preset(monkeypatch):
-    """speed='bf16_frontier' reaches the measured v5e frontier through the
-    object API: it routes the unrolled cholqr1 kernel with bulk
+    """speed='bf16_frontier' reaches the reduced-precision preset through
+    the object API: it routes the unrolled cholqr1 kernel with bulk
     precision='default' and gram_precision pinned at 'high'.  The
     gram>='high' pin IS the guardrail for the measured 4.6x
     decaying-spectrum error blowup at gram='default'
-    (doc/performance.md round-4 bf16 study) — this test fails if the
+    (benchmarks/bf16_round_study.py) — this test fails if the
     preset ever lowers it.  CPU einsum ignores the precision args, so the
     numeric check here is exactness on representable ranks; the knob
     plumbing is asserted by spying on the kernel factory."""

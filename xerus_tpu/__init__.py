@@ -1,4 +1,4 @@
-"""xerus_tpu — a TPU-native library for higher-order tensors, Tensor-Train /
+"""xerus_tpu — a JAX library for higher-order tensors, Tensor-Train /
 MPS decompositions and general tensor networks.
 
 Ground-up JAX/XLA re-design with the capabilities of the reference C++

@@ -21,7 +21,7 @@ from .random_svd import randomTTSVD
 
 def als_spd_mixed(A, x, b, num_half_sweeps: int = 6):
     """Mixed-precision (double-word f32) SPD ALS: float64-quality residuals
-    on TPU without float64 compute (ops/mixed_precision.py).  Returns the
+    from float32 compute only (ops/mixed_precision.py).  Returns the
     solution as a TTTensor built from the refined cores."""
     from ..ops.mixed_precision import als_spd_mixed as _impl
     from ..tt.ttnetwork import TTTensor
@@ -34,8 +34,7 @@ def als_spd_fused(A, x, b, max_f32_sweeps: int = 16, df_sweeps: int = 2):
     """Full mixed-precision SPD solve as ONE device program: f32
     while_loop half-sweeps to the f32 plateau, in-program double-word
     seed, then ``df_sweeps`` df half-sweeps — f64-quality residuals in
-    one dispatch (ops/mixed_precision.make_als_f32_df_run; the d=32
-    rank-30 Poisson north star measures 0.268 s / 9.4e-15 on v5e-1).
+    one dispatch (ops/mixed_precision.make_als_f32_df_run).
     Returns (solution TTTensor, f32 residual history list)."""
     import numpy as np
     from ..config import host

@@ -149,22 +149,20 @@ def smallest_eigenvalue(A: TTOperator, x: TTTensor, sites: int = 2,
     """solver="exact": adaptive-rank object-level sweeps with dense local
     eigh (the reference's approach).  solver="lanczos": the whole-sweep
     scan kernel with matrix-free Lanczos local solves
-    (ops/dmrg_kernels.py; 8.6ms vs 632-783ms per d=32 rank-16 half-sweep
-    on v5e) — requires sites=2 and uniform mode dimensions; ranks are
+    (ops/dmrg_kernels.py; one device program per solve instead of dense
+    local eigh) — requires sites=2 and uniform mode dimensions; ranks are
     fixed at max_rank (x is rank-bumped if needed).  Arbitrary spectra
     are handled via an auto-estimated spectral shift (shift=None); pass
     shift=0.0 if the ground energy is known negative (skips the
     lambda_max estimation phase and the projector carry) or a known
     upper bound s > lambda_min.
 
-    solver=None picks automatically: "lanczos" on TPU backends whenever
-    its structural requirements hold (the dense local eigh takes 632-783
-    ms per half-sweep plus multi-minute compiles on v5e — CPU-validation
-    only there), "exact" otherwise."""
+    solver=None picks automatically: "lanczos" when the default backend
+    is an accelerator (config.on_accelerator) and its structural
+    requirements hold, "exact" otherwise."""
     if solver is None:
-        import jax as _jax
-        on_tpu = _jax.devices()[0].platform == "tpu"
-        solver = ("lanczos" if on_tpu and sites == 2
+        from ..config import on_accelerator
+        solver = ("lanczos" if on_accelerator() and sites == 2
                   and len(set(x.dimensions)) == 1 else "exact")
     require(solver in ("exact", "lanczos"),
             f"unknown solver {solver!r}; expected 'exact' or 'lanczos'")

@@ -4,8 +4,8 @@ Re-design of include/xerus/measurments.h:43-146, src/xerus/measurments.cpp.
 Positions live in device-friendly batched arrays: evaluation against a TT is
 one vectorized gather-matmul sweep over the measurement axis instead of the
 reference's per-measurement tensor contractions with stack-prefix recycling
-(measurments.cpp:470-500) — on TPU the batched form is the fast path, and it
-shards trivially over the measurement axis (SURVEY.md §2.6a).
+(measurments.cpp:470-500) — on an accelerator the batched form is the fast
+path, and it shards trivially over the measurement axis (SURVEY.md §2.6a).
 """
 
 from __future__ import annotations
@@ -21,16 +21,9 @@ from .. import misc as _misc
 
 
 def _evaluate_tt_at_points(tt, positions: np.ndarray) -> np.ndarray:
-    """values[m] = tt[positions[m]] via batched per-site gather-matmul; on
-    TPU with many measurements the fused Pallas sweep takes over
-    (ops/pallas_tt_eval.py)."""
-    import jax
+    """values[m] = tt[positions[m]] via one batched gather + contraction
+    per site; the (M, r) frontier is the only intermediate."""
     M = positions.shape[0]
-    if jax.devices()[0].platform == "tpu" and M >= 512:
-        from ..ops.pallas_tt_eval import tt_eval_at_points_pallas
-        vals = tt_eval_at_points_pallas(
-            [c.to_jax() for c in tt.components], np.asarray(positions))
-        return np.asarray(vals)
     P = jnp.asarray(positions)
     F = jnp.ones((M, 1), dtype=config.value_dtype)
     for k, comp in enumerate(tt.components):

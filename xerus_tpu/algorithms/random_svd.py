@@ -27,7 +27,7 @@ def randomTTSVD(tensor, ranks: Union[int, Sequence[int]],
     ``oversampling`` is accepted for reference-signature parity; the
     device kernels manage their own sketch oversampling internally, so a
     scalar/vector here only validates shape.  Sparse tensors densify
-    (the reference's sparse sketch path serves CPUs; on TPU the dense
+    (the reference's sparse sketch path serves CPUs; on a device the dense
     unfolding + fused rounding sweep is the fast route).
     """
     tt = TTTensor.from_dense_unfolding(tensor)

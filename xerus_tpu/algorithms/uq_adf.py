@@ -83,7 +83,7 @@ class _UQInternalSolver:
         With `mesh`, the sample axis (N) of the solutions and Hermite
         embeddings is sharded over the mesh's "dp" axis; every einsum here
         is sample-batched, so GSPMD turns the gradient/step reductions into
-        psums over ICI and the cores stay replicated (SURVEY.md §2.6a)."""
+        psums over the interconnect and the cores stay replicated (SURVEY.md §2.6a)."""
         import jax
         from functools import partial
 

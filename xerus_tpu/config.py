@@ -5,7 +5,7 @@ comparison tolerance ``EPSILON = 8 * machine-eps`` from it
 (/root/reference/include/xerus/basic.h:37-43).  We keep float64 as the
 default *semantic* dtype (enabled through jax x64) so that decomposition /
 solver residuals match the reference to ~1e-10, while allowing the compute
-dtype to be lowered (float32 / bfloat16) for TPU throughput benchmarks.
+dtype to be lowered (float32 / bfloat16) for throughput benchmarks.
 """
 
 from __future__ import annotations
@@ -79,15 +79,39 @@ def require(cond: bool, msg: str = "") -> None:
         raise ValueError(msg or "xerus_tpu runtime check failed")
 
 
+def on_accelerator() -> bool:
+    """True when the session's default backend is an accelerator (GPU).
+
+    Solver defaults that only pay off with device-resident kernels (the
+    matrix-free Lanczos DMRG, algorithms/eigensolver.py) decide by this,
+    not by a platform name."""
+    return jax.default_backend() != "cpu"
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache and return its directory.
+
+    ``JAX_COMPILATION_CACHE_DIR``, when set, wins; otherwise the cache
+    lives at the fixed path ``<repo>/.jax_cache``, so every script of this
+    repository shares one cache whose key does not move with the working
+    directory."""
+    cache_dir = os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    return cache_dir
+
+
 def host():
     """Context manager pinning jax computations to the CPU backend.
 
-    The object layer (Tensor math, move_core, frob_norm) carries f64 host
-    semantics; in a TPU session those ops would otherwise trace onto the
-    TPU, whose f64 support is broken at scale (norms come back inf/NaN,
-    see doc/performance.md).  Drivers wrap their object-level preambles in
-    this scope; users working interactively in a TPU session should build
-    objects under it too:
+    The object layer (Tensor math, move_core, frob_norm, the small
+    factorizations) carries the reference's host-LAPACK f64 semantics;
+    drivers wrap their object-level preambles in this scope so that many
+    tiny dispatches stay on the host while the whole-sweep kernels run on
+    the session's default device.  Interactive users may build objects
+    under it too:
 
         with xe.host():
             A = laplace_operator([2] * 32)

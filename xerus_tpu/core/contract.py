@@ -2,7 +2,7 @@
 
 Re-design of ``xerus::contract`` (src/xerus/tensor.cpp:1252-1352): matricize
 both operands and run one GEMM.  Dense x dense goes through
-``lax.dot_general`` on device (MXU); contractions involving sparse operands
+``lax.dot_general`` on device; contractions involving sparse operands
 use scipy.sparse on host (the CHOLMOD/sparseTimesFullContraction analogue,
 src/xerus/cholmod_wrapper.cpp, src/xerus/sparseTimesFullContraction.cpp) with
 a device COO segment-sum path for large dense results (ops/sparse_dense.py).

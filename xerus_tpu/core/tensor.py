@@ -1,6 +1,6 @@
 """Dense + sparse Tensor with a lazy scalar factor.
 
-TPU-native re-design of the reference's ``xerus::Tensor``
+JAX re-design of the reference's ``xerus::Tensor``
 (/root/reference/include/xerus/tensor.h:70-1074, src/xerus/tensor.cpp).
 
 Differences from the reference, by design:

@@ -1,6 +1,6 @@
 """Expression evaluation: trace -> einsum -> assignment.
 
-This is the TPU-native replacement for the reference's evaluation stack
+This is the JAX replacement for the reference's evaluation stack
 (src/xerus/indexedTensorWritable.cpp:60-80,
 src/xerus/indexedTensor_tensor_evaluate.cpp:248,
 src/xerus/tensorNetwork.cpp:1253): at assignment time the expression tree is

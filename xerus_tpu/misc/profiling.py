@@ -1,7 +1,7 @@
 """On-device kernel profiling hook.
 
 The reference's XERUS_PERFORMANCE_ANALYSIS macros time host kernel calls
-(misc/performanceAnalysis.h:31-38); on TPU the equivalent is a
+(misc/performanceAnalysis.h:31-38); on a device the equivalent is a
 jax.profiler trace viewable in Perfetto/TensorBoard."""
 
 from __future__ import annotations

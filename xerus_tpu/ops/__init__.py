@@ -6,16 +6,14 @@ from .tt_kernels import (tt_round_sweep, make_round_sweep, round_flops,
                          make_als_sweep_res, make_als_multi_sweep_res,
                          randomized_round_flops,
                          make_als_sweep, als_sweep_flops,
-                         als_half_sweep_batched, make_timed_loop)
+                         als_half_sweep_batched, make_timed_loop, pad_cores)
 from .apply_kernels import (apply_operator_rounded,
                             apply_operator_rounded_cores)
 from .sparse_kernels import sparse_times_dense, dense_times_sparse
-from .pallas_tt_eval import tt_eval_at_points_pallas, pad_cores
 from . import df32
 from . import mixed_precision
 from .dmrg_kernels import dmrg_groundstate_fast
 from .adf_kernels import make_adf_iteration
-from .pallas_df import pallas_df_matvec
 from .ozaki import ozaki_matmul, ozaki_matmul_f32
 from .df_cholesky import df_cholesky, df_solve_spd_chol
 from .df_eigh import df_eigh, df_svd, df_svd_jw

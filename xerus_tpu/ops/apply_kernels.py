@@ -6,7 +6,7 @@ bond rank a*r is materialized and the full rounding chain runs on it.
 Here the two fuse: the randomized-rounding sketch and projection scans
 contract the A- and x-cores DIRECTLY, so the (a*r, n, a*r) product cores
 are never materialized (for a=3 MPO on r=256, d=32 that stack alone is
-~150 MB) and every step stays GEMM-shaped for the MXU.
+~150 MB) and every step stays GEMM-shaped.
 
 Math: identical to `_round_randomized_scan` (ops/tt_kernels.py) applied
 to the product cores Y_k[(al rl), m, (ar rr)] = sum_c A_k[al, m, c, ar]
@@ -164,17 +164,12 @@ def apply_operator_rounded_cores(A_cores: Sequence, x_cores: Sequence,
 def apply_operator_rounded(op, x, target_rank: int, oversample: int = 8):
     """Object-level fused apply+round: returns round(op @ x) at rank
     <= target_rank without materializing the rank-a*r product
-    (TTStack+round semantics, ttStack.cpp:197; new TPU-first kernel)."""
-    import jax as _jax
+    (TTStack+round semantics, ttStack.cpp:197; new kernel)."""
     from ..config import host
     from ..core.tensor import Tensor
     with host():
         A_cores = [np.asarray(c.to_ndarray()) for c in op.components]
         x_cores = [np.asarray(c.to_ndarray()) for c in x.components]
-    if (_jax.devices()[0].platform == "tpu"
-            and x_cores[0].dtype == np.float64):
-        A_cores = [c.astype(np.float32) for c in A_cores]
-        x_cores = [c.astype(np.float32) for c in x_cores]
     out = apply_operator_rounded_cores(A_cores, x_cores, target_rank,
                                        oversample)
     with host():

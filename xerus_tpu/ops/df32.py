@@ -1,14 +1,15 @@
-"""Double-word float32 ("double-float") arithmetic on TPU.
+"""Double-word float32 ("double-float") arithmetic.
 
-TPUs have no practical float64 (measured: x64 programs do not compile in
-reasonable time through this stack — doc/performance.md), but the north-star
-workloads need 1e-10-level residuals ON DEVICE.  A double-word number is an
+f64-quality (1e-10-level) residuals from float32 arithmetic, for devices
+whose f32 rate far exceeds their f64 rate.  A double-word number is an
 unevaluated sum hi + lo of two float32s with |lo| <= ulp(hi)/2, giving
 ~49 bits of significand — enough for 1e-12-level linear-algebra residuals.
+Where native float64 is fast, the plain f64 kernels are the simpler route;
+which one wins a given solve is a measurement (PERF.md).
 
 Primitives use error-free transformations that need only IEEE round-to-
 nearest f32 add/mul.  CAUTION: the compiler DOES contract mul-then-add
-chains into FMAs (LLVM on CPU; Mosaic on TPU), which silently breaks the
+chains into FMAs (LLVM on CPU and GPU), which silently breaks the
 arithmetic Veltkamp split — the mantissa split is therefore done by bit
 masking (`_split`), which no contraction can touch:
   two_sum   — Knuth 2Sum (add/sub only: contraction-immune)
@@ -16,8 +17,8 @@ masking (`_split`), which no contraction can touch:
 Reductions are pairwise trees of df_add, so accumulation error stays
 O(log K) in df precision instead of O(sqrt K) in f32.
 
-This is a new TPU-first design (the reference simply links double-precision
-LAPACK, SURVEY.md §2.2).
+This is a new design (the reference simply links double-precision LAPACK,
+SURVEY.md §2.2).
 """
 
 from __future__ import annotations
@@ -171,8 +172,8 @@ def df_matvec(Ah, Al, xh, xl):
 
 
 # above this broadcast size (m*k*n elements) the Ozaki split-GEMM path
-# (ops/ozaki.py: exact bf16 slice GEMMs on the MXU, ~100x faster on TPU at
-# ~4e-15 max rel err vs this path's ~5e-16) replaces the O(m*k*n) broadcast
+# (ops/ozaki.py: exact bf16 slice GEMMs, ~4e-15 max rel err vs this path's
+# ~5e-16) replaces the O(m*k*n) broadcast
 OZAKI_MATMUL_THRESHOLD = 1 << 21
 
 
@@ -185,8 +186,7 @@ def df_matmul(Ah, Al, Bh, Bl, block_k: int = 0):
     n = Bh.shape[1]
     # Ozaki wins when the contraction is GEMM-shaped; for skinny k its
     # fixed overhead (splits + 14 kernel dispatches) loses to the
-    # broadcast tree (measured: d=32 r=30 df ALS half-sweep 114ms with
-    # unconditional dispatch vs 59ms without)
+    # broadcast tree (the skinny contractions of the df ALS half-sweep)
     if (m * k * n >= OZAKI_MATMUL_THRESHOLD and k >= 128
             and Ah.dtype == jnp.float32):
         from .ozaki import ozaki_matmul
@@ -214,33 +214,21 @@ def df_contract_last_first(Ah, Al, Bh, Bl):
 # Refined linear solve: f32 Cholesky + df iterative refinement
 # ---------------------------------------------------------------------------
 
-# above this size the single-pass Pallas matvec replaces the log(k)-pass
-# jnp reduction in the refinement residual (ops/pallas_df.py)
-PALLAS_MATVEC_THRESHOLD = 1 << 20
-
-
 def df_solve_spd_refined(Ah, Al, bh, bl, iterations: int = 3):
-    """Solve A x = b (SPD) to ~df accuracy: factorize hi in f32 (MXU), then
+    """Solve A x = b (SPD) to ~df accuracy: factorize hi in f32, then
     refine with df residuals.  Converges when kappa(A) * 2^-24 < 1.
 
     The Cholesky factor is only a PRECONDITIONER — its accuracy does not
     limit the final residual (the df refinement corrects it), so it runs
     at DEFAULT matmul precision even when the surrounding kernel traces
-    under HIGHEST (jit_f32): measured on v5e, a HIGHEST-precision 1800^2
-    cho_factor doubles the d=32 r=30 df ALS half-sweep."""
+    under HIGHEST (jit_f32)."""
     with jax.default_matmul_precision("default"):
         cf = jax.scipy.linalg.cho_factor(Ah)
-    use_pallas = (Ah.shape[0] * Ah.shape[1] >= PALLAS_MATVEC_THRESHOLD)
-    if use_pallas:
-        from .pallas_df import pallas_df_matvec
 
     def body(_, x):
         xh, xl = x
         # r = b - A x  in df
-        if use_pallas:
-            axh, axl = pallas_df_matvec(Ah, Al, xh, xl)
-        else:
-            axh, axl = df_matvec(Ah, Al, xh, xl)
+        axh, axl = df_matvec(Ah, Al, xh, xl)
         rh, rl = df_sub(bh, bl, axh, axl)
         # correction in f32 from the hi residual
         with jax.default_matmul_precision("default"):

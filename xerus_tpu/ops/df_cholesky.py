@@ -1,4 +1,4 @@
-"""Blocked double-word Cholesky: f64-quality SPD factorization on TPU.
+"""Blocked double-word Cholesky: f64-quality SPD factorization in f32.
 
 The refined solve in ops/df32.py (f32 Cholesky + df residual refinement)
 requires kappa * 2^-24 < 1 — beyond that the f32 factorization itself
@@ -9,15 +9,15 @@ usable condition range extends to kappa ~ 2^48:
 - diagonal blocks + panel triangular solves: masked column-sequential df
   arithmetic (ops/df32.py EFTs) under `lax.fori_loop`;
 - trailing updates (all the FLOPs): Ozaki split GEMMs (ops/ozaki.py),
-  exact bf16 slice products on the MXU.
+  exact bf16 slice products.
 
 The solve applies the df factor via f32 triangular substitution inside a
 df iterative refinement loop: the f32 trsm error scales with kappa(L) =
 sqrt(kappa(A)) * 2^-24, which stays < 1 up to kappa(A) ~ 2^48.
 
 The reference's analogue is LAPACK dpotrf/dpotrs (blasLapackWrapper.cpp,
-used by Tensor::solve's SPD path tensor.cpp:1583-1704); this is the
-TPU-native equivalent of its f64 quality.
+used by Tensor::solve's SPD path tensor.cpp:1583-1704); this reaches its
+f64 quality from f32 arithmetic.
 """
 
 from __future__ import annotations
@@ -125,7 +125,7 @@ def df_cholesky(Ah, Al, block: int = 64):
             X21h, X21l = _df_trsm_rlt(A21h, A21l, Lkh, Lkl)
             Lh = Lh.at[k + B:, k:k + B].set(X21h)
             Ll = Ll.at[k + B:, k:k + B].set(X21l)
-            # trailing update: A22 -= L21 L21^T (Ozaki GEMM, MXU)
+            # trailing update: A22 -= L21 L21^T (Ozaki GEMM)
             Uh, Ul = ozaki_matmul(X21h, X21l,
                                   jnp.transpose(X21h), jnp.transpose(X21l))
             th, tl = df_sub(Ah[k + B:, k + B:], Al[k + B:, k + B:], Uh, Ul)

@@ -18,7 +18,7 @@ error.  Clustered eigenvalues cap the attainable accuracy at
 ~u_df / gap — returned as is (document, don't hide).
 
 The reference's analogue is LAPACK dsyev via blasLapackWrapper; this is
-the TPU-native f64-quality version (TPU has no practical f64).
+its f64-quality version from f32 arithmetic.
 """
 
 from __future__ import annotations

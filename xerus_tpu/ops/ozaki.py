@@ -2,13 +2,15 @@
 
 The double-word path's `df_matmul` (ops/df32.py) forms the full (m, k, n)
 broadcast product and tree-reduces it — numerically excellent but O(m*k*n)
-memory and VPU-bound.  The Ozaki scheme (Ozaki/Ogita/Oishi/Rump, Numer.
+memory and elementwise-bound.  The Ozaki scheme (Ozaki/Ogita/Oishi/Rump, Numer.
 Algorithms 59, 2012) instead splits each factor into slices with few enough
 mantissa bits that every pairwise slice GEMM is EXACT in ordinary f32
 accumulation; the slice products are then summed in double-word arithmetic.
-All heavy work becomes plain GEMMs — on TPU the slices (<= 8 mantissa bits)
-are bf16-representable, so the MXU runs them at native rate with its exact
-f32 accumulator.
+All heavy work becomes plain GEMMs — the slices (<= 8 mantissa bits) are
+bf16-representable, so bf16 matrix units with an f32 accumulator run them
+exactly.  (That the accumulation of a given device's bf16 GEMM is exact in
+f32 is an assumption each backend has to meet; tests/test_df32.py checks
+it where the suite runs.)
 
 Error budget for df inputs (hi, lo) with slice width delta and s slices:
   - hi x hi slice products: exact (2*delta + ceil(log2 k) <= 24)
@@ -16,8 +18,8 @@ Error budget for df inputs (hi, lo) with slice width delta and s slices:
     magnitude 2^(-s*delta) resp. 2^-24 -> ~2^-48 overall, i.e. df quality.
 
 This implements ROADMAP item "Ozaki-scheme df GEMM"; the reference has no
-analogue (xerus is f64 CPU LAPACK throughout) — this is the TPU-native
-answer to its f64 precision story, see also ops/df32.py.
+analogue (xerus is f64 CPU LAPACK throughout) — this reaches its f64
+precision from f32/bf16 GEMMs, see also ops/df32.py.
 """
 
 from __future__ import annotations
@@ -67,7 +69,7 @@ def _gemm_f32(a, b):
 
 def _gemm_exact(a, b):
     """Exact product of slice matrices: <=8 mantissa bits each, so bf16
-    inputs with the f32 accumulator lose nothing (MXU-native on TPU)."""
+    inputs with the f32 accumulator lose nothing."""
     return jax.lax.dot_general(
         a.astype(jnp.bfloat16), b.astype(jnp.bfloat16),
         (((1,), (0,)), ((), ())),

@@ -9,7 +9,7 @@ layer can pick whichever is faster per backend.
 
 Design: classic column-pivoted Householder in a lax.fori_loop with
 row/column masks standing in for the shrinking trailing block (static
-shapes; TPU-compatible).  Pivot selection recomputes trailing column
+shapes; jit-compatible).  Pivot selection recomputes trailing column
 norms each step — O(mn) per step, same order as the reflection itself,
 and immune to the cancellation drift of the classical downdate (LAPACK
 guards that drift with recomputation anyway; the PIVOT SEQUENCE matches

@@ -1,12 +1,12 @@
 """Device-side sparse x dense contraction kernels.
 
-TPU-native equivalent of the reference's hand-written mixed sparse/dense
+Device equivalent of the reference's hand-written mixed sparse/dense
 GEMMs (src/xerus/sparseTimesFullContraction.cpp:66-224) and the CHOLMOD
 sparse kernels (src/xerus/cholmod_wrapper.cpp): a matricized sparse operand
 becomes COO index/value arrays, the product is a gather of dense rows scaled
-by the values and a segment-sum over output rows (XLA scatter-add).  TPUs
-dislike scattered memory access, so the host scipy path (core/contract.py)
-stays the default for small operands; this kernel takes over at
+by the values and a segment-sum over output rows (XLA scatter-add).  The
+host scipy path (core/contract.py) stays the default for small operands,
+where a dispatch costs more than the work; this kernel takes over at
 ``DEVICE_SPARSE_THRESHOLD`` dense-FLOP-equivalents.
 """
 

@@ -1,10 +1,12 @@
 """Device-mesh plumbing.
 
 The reference has no distributed layer (SURVEY.md §2.6): its parallelism is
-OpenMP pragmas over measurement/sample loops plus threaded BLAS.  The
-TPU-native communication backend is jax.sharding over a Mesh: collectives
+OpenMP pragmas over measurement/sample loops plus threaded BLAS.  Here the
+communication backend is jax.sharding over a Mesh: collectives
 (psum/all-gather/reduce-scatter) arise from sharded einsums via GSPMD and
-ride ICI.  Axis roles:
+run over the device interconnect (NCCL over NVLink on a GPU host, which
+joins every card to every other, so the mesh shape follows the algorithm
+alone).  Axis roles:
 
 * ``dp`` — the measurement/sample batch axis (ADF, UQ-ADF, measurement
   evaluation: the loops the reference marks embarrassingly parallel with

@@ -3,7 +3,7 @@
 The reference parallelizes exactly these ops with OpenMP threads — TT
 entrywise product's per-component Kronecker loop (ttNetwork.cpp:1288-1300
 `#pragma omp for`) and componentwise arithmetic — because every site's work
-is independent.  On a TPU mesh the same independence maps to sharding the
+is independent.  On a device mesh the same independence maps to sharding the
 SITE axis of the padded core stacks over a mesh axis with `shard_map`:
 each device transforms its block of sites locally and no collective is
 needed at all (SURVEY.md §2.6(c): "per-edge independence inside

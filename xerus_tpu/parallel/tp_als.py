@@ -21,7 +21,7 @@ Design (one XLA program per half-sweep, same sweep math as the serial
 * x/A/b cores stay replicated (they are tiny, r*n*r each); the *work*
   is sharded, which is what tensor parallelism buys here.
 
-Collectives are r*n*r/p-sized and ride ICI.  The reference has no
+Collectives are r*n*r/p-sized and ride the interconnect.  The reference has no
 distributed layer at all (SURVEY.md §2.6); the serial kernel is the
 correctness oracle (tests/test_parallel.py, 8-virtual-device CPU mesh).
 """
@@ -175,9 +175,8 @@ def make_tp_als_half_sweep(mesh_key, shape, a_shape, b_shape,
         in_specs=(P(), P(), P()),
         out_specs=P(),
         check_vma=False)
-    # jit_f32 discipline (CLAUDE.md): trace with x64 off so the jnp.arange
-    # rank masks stay s32 (s64 iota SIGABRTs this TPU compiler), and keep
-    # genuine-f32 matmul precision
+    # jit_f32 discipline (ops/tt_kernels.py): trace with x64 off so the
+    # f32 kernel stays f32, and keep genuine-f32 matmul precision
     from ..ops.tt_kernels import jit_f32
     return jit_f32(fn, dtype_str)
 
@@ -190,7 +189,7 @@ def tp_als_half_sweep(x_cores: Sequence, A_cores: Sequence,
     x must be canonicalized at core 0 (the serial-kernel contract).  Cores
     are zero-padded to the uniform max rank (rounded up to a multiple of
     the mesh axis size); returns cores unpadded to their input shapes."""
-    from ..ops.pallas_tt_eval import pad_cores
+    from ..ops.tt_kernels import pad_cores
     p = mesh.shape[axis]
     d = len(x_cores)
     x_stack, r = pad_cores([np.asarray(c) for c in x_cores])

@@ -17,13 +17,13 @@ axis, in the spirit of Al Daas/Ballard-style parallel TT arithmetic
 - one `all_to_all` between the passes reshards the stack from
   left-rank-sharded to right-rank-sharded.
 
-All collectives are rank-sized (r*r or r*n*r/p) and ride ICI; the per-site
+All collectives are rank-sized (r*r or r*n*r/p) and ride the interconnect; the per-site
 GEMM work drops by ~p per chip.  Validated against the serial kernel on
 the 8-virtual-device CPU mesh (tests/test_parallel.py).
 
 The reference rounds single-node only (xerus tensorNetwork.cpp round_edge /
-ttNetwork.cpp:1100-1200 move_core sweeps); this is the TPU-native
-multi-chip extension.
+ttNetwork.cpp:1100-1200 move_core sweeps); this is the multi-device
+extension.
 """
 
 from __future__ import annotations
@@ -43,9 +43,8 @@ def _round_tsqr_local(stacked, target_rank: int, p: int, axis: str,
     """Body run per device under shard_map.  stacked: (d, r/p, n, r) local
     block, sharded on the LEFT rank axis.  method='gram' truncates each
     bond with a replicated (r, r) eigh; method='subspace' replaces it
-    with GEMM-only subspace iteration + Cholesky LQ (no eigh anywhere —
-    v5e eigh(256) costs ~2ms per CALL and does not batch, see
-    ops/tt_kernels._trunc_step_subspace; quality within a few % of
+    with GEMM-only subspace iteration + Cholesky LQ (no eigh anywhere,
+    see ops/tt_kernels._trunc_step_subspace; quality within a few % of
     exact truncation, validated on the CPU mesh)."""
     d, rp, n, r = stacked.shape
     dtype = stacked.dtype
@@ -165,7 +164,7 @@ def tt_round_tsqr(cores: Sequence[jnp.ndarray], target_rank: int,
     rank to a multiple of the device count; returns unpadded cores.
     method: 'gram' (replicated per-bond eigh) or 'subspace' (GEMM-only
     truncation — no eigh; see _round_tsqr_local)."""
-    from ..ops.pallas_tt_eval import pad_cores
+    from ..ops.tt_kernels import pad_cores
     from ..ops.tt_kernels import res_rank
     p = mesh.shape[axis]
     stacked, r = pad_cores([np.asarray(c) for c in cores])
